@@ -31,8 +31,8 @@ def main():
     jax.config.update("jax_platforms", "cpu")
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    from rtw_tpu import RenderConfig, build_scene
-    from rtw_tpu.parallel.mesh import (init_distributed, make_mesh,
+    from rtw import RenderConfig, build_scene
+    from rtw.parallel.mesh import (init_distributed, make_mesh,
                                        render_sharded)
 
     init_distributed(coordinator_address=f"127.0.0.1:{port}",

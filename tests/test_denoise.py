@@ -5,8 +5,8 @@ against a converged reference without destroying edges (SURVEY §5
 import numpy as np
 import pytest
 
-import rtw_tpu as rt
-from rtw_tpu.denoise import denoise, atrous, primary_features
+import rtw as rt
+from rtw.denoise import denoise, atrous, primary_features
 
 
 @pytest.fixture(scope="module")

@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import rtw_tpu as rt
-from rtw_tpu.models import scene as S
-from rtw_tpu.models.builder import SceneBuilder
-from rtw_tpu.diff import (extract_params, apply_params, render_for_grad,
+import rtw as rt
+from rtw.models import scene as S
+from rtw.models.builder import SceneBuilder
+from rtw.diff import (extract_params, apply_params, render_for_grad,
                           make_loss_and_grad)
-from rtw_tpu.utils import rng as R
+from rtw.utils import rng as R
 
 
 @pytest.fixture(scope="module")
@@ -163,7 +163,7 @@ def test_chunked_grad_matches_monolithic(simple_scene):
     """make_loss_and_grad_chunked (constant-memory spp accumulation +
     cfg.remat bounce rematerialization) must produce the same loss and
     gradients as the monolithic estimator."""
-    from rtw_tpu.diff import make_loss_and_grad_chunked
+    from rtw.diff import make_loss_and_grad_chunked
 
     scene = simple_scene
     key = R.base_key(3)
@@ -209,21 +209,17 @@ def test_gradients_finite_all_scenes(sid):
 
 @pytest.mark.parametrize("sid", [0, 3])
 def test_pallas_grad_matches_jnp(sid):
-    """The fast gradient path (Pallas forward trace under stop_gradient +
+    """The fast gradient path (kernel forward trace under stop_gradient +
     reeval_hit differentiable winner payload) must produce the same loss and
     gradients as the pure-JAX sweep — on scenes exercising instance
     transforms, dielectric/metal, NEE (Cornell) and volumes (scene 3)."""
     import dataclasses
-    from jax.experimental.pallas import tpu as pltpu
+    from rtw.ops import trace_kernel as TK
 
     scene = rt.build_scene(sid, 12, 12)
-    # remat=False: interpret-mode pallas carries an IO-callback effect that
-    # jax.checkpoint's partial-eval rejects (compiled TPU pallas_calls have
-    # no such effect — remat+pallas-grad runs on chip; covered by the
-    # on-chip gradient bench, docs/GRADIENTS.md)
     cfg_jnp = rt.RenderConfig(nx=12, ny=12, spp=1, max_depth=4,
                               differentiable=True, backend="jnp",
-                              remat=False, scene_id=sid)
+                              scene_id=sid)
     cfg_pal = dataclasses.replace(cfg_jnp, backend="pallas")
     key = R.base_key(13)
     pix = jnp.arange(cfg_jnp.num_pixels, dtype=jnp.int32)
@@ -231,7 +227,7 @@ def test_pallas_grad_matches_jnp(sid):
     target = jnp.zeros((cfg_jnp.num_pixels, 3), jnp.float32)
 
     l1, g1 = make_loss_and_grad(scene, cfg_jnp, 2)(params, target, pix, key)
-    with pltpu.force_tpu_interpret_mode():
+    with TK.interpret_mode():
         l2, g2 = make_loss_and_grad(scene, cfg_pal, 2)(params, target, pix,
                                                        key)
     np.testing.assert_allclose(float(l2), float(l1), rtol=1e-4)
@@ -244,9 +240,9 @@ def test_pallas_grad_matches_jnp(sid):
 def test_pallas_grad_fd(simple_scene):
     """FD validation directly through the fast gradient path."""
     import dataclasses
-    from jax.experimental.pallas import tpu as pltpu
+    from rtw.ops import trace_kernel as TK
 
-    cfg = dataclasses.replace(CFG, backend="pallas", remat=False)
+    cfg = dataclasses.replace(CFG, backend="pallas")
     key = R.base_key(7)
     pix = jnp.arange(cfg.num_pixels, dtype=jnp.int32)
     params = extract_params(simple_scene)
@@ -257,7 +253,7 @@ def test_pallas_grad_fd(simple_scene):
                                        N_SAMPLES))
 
     v0 = params["tex_color"][0, 0]
-    with pltpu.force_tpu_interpret_mode():
+    with TK.interpret_mode():
         analytic = float(jax.grad(scalar_est)(v0))
         eps = 1e-2
         numeric = float((scalar_est(v0 + eps) - scalar_est(v0 - eps))

@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import pytest
 
-import rtw_tpu as rt
+import rtw as rt
 
 _WORKER = os.path.join(os.path.dirname(__file__), "distributed_worker.py")
 
@@ -122,7 +122,7 @@ def test_preempt_resume_bitexact():
     if preempted and os.path.exists(out):
         os.remove(out)   # partial job should not have produced the image
 
-    from rtw_tpu.utils import checkpoint as ck
+    from rtw.utils import checkpoint as ck
     cfg = rt.RenderConfig(nx=32, ny=24, spp=spp, max_depth=6, scene_id=5,
                           backend="jnp", scheduler="regen", spp_chunk=1)
     state = ck.load(ckpt, cfg)

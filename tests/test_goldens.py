@@ -16,7 +16,7 @@ import os
 import numpy as np
 import pytest
 
-import rtw_tpu as rt
+import rtw as rt
 
 # scheduler pinned to "regen": per-pixel goldens must be independent of
 # batch width (the queue scheduler reassociates per-pixel sums)

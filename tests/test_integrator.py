@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import rtw_tpu as rt
-from rtw_tpu.models import scene as S
-from rtw_tpu.models.builder import SceneBuilder
-from rtw_tpu.integrator import trace_paths
-from rtw_tpu.utils import rng as R
+import rtw as rt
+from rtw.models import scene as S
+from rtw.models.builder import SceneBuilder
+from rtw.integrator import trace_paths
+from rtw.utils import rng as R
 
 
 def _render_mean(scene, cfg, n_pix=None):
@@ -225,22 +225,6 @@ def test_book_mixture_unbiased():
     book = _render_mean(scene, book_cfg).mean()
     assert abs(book - mis) / mis < 0.02, (book, mis)
 
-    # the megakernel does not implement the book estimator: forcing it
-    # must fail loudly, and the auto gates must not select it
-    from rtw_tpu.integrator import (_mega_backend, _qmega_backend,
-                                    _validate_mega)
-    s5 = rt.build_scene(5, 16, 9)
-    assert not _mega_backend(book_cfg, s5)
-    assert not _qmega_backend(book_cfg, s5)
-    with pytest.raises(ValueError, match="estimator"):
-        _validate_mega(book_cfg, s5)
-
-    # the megakernel does not implement the book estimator: forcing it
-    # must fail loudly, and the auto gate must not select it
-    from rtw_tpu.integrator import _mega_backend, _validate_mega
-    assert not _mega_backend(book_cfg, rt.build_scene(5, 16, 9))
-    with pytest.raises(ValueError, match="estimator"):
-        _validate_mega(book_cfg, rt.build_scene(5, 16, 9))
 
 
 def test_mis_unbiased_two_lights():
@@ -397,8 +381,8 @@ def test_decode_tile_pixel_matches_permutation(nx, ny):
     """decode_tile_pixel is the exact closed form of render.tile_permutation
     (incl. partial edge tiles) — the analytic claim-pixel decode the
     work-queue flush uses under cfg.pixel_layout='tile32'."""
-    from rtw_tpu.render import tile_permutation
-    from rtw_tpu.integrator import decode_tile_pixel
+    from rtw.render import tile_permutation
+    from rtw.integrator import decode_tile_pixel
 
     perm = tile_permutation(nx, ny)
     pos = jnp.arange(nx * ny, dtype=jnp.int32)
@@ -410,8 +394,8 @@ def test_queue_tile32_layout_bitwise_matches_generic():
     """The analytic pixel decode changes no estimator bit: same items, same
     claim order, identical accumulators."""
     import dataclasses
-    from rtw_tpu.render import tile_permutation
-    from rtw_tpu.integrator import trace_wavefront_queue
+    from rtw.render import tile_permutation
+    from rtw.integrator import trace_wavefront_queue
 
     nx, ny = 64, 48
     scene = rt.build_scene(5, nx, ny)
@@ -433,7 +417,7 @@ def test_light_matcher_overlap_semantics():
     """_quad_square_overlap is a true convex-polygon test: containment and
     straddling overlap; disjoint, edge-adjacent, and rotated-diagonal
     (bbox-overlapping but polygon-disjoint) do not."""
-    from rtw_tpu.models.builder import _quad_square_overlap
+    from rtw.models.builder import _quad_square_overlap
 
     sq = lambda a0, a1, b0, b1: (np.array([a0, a1, a0, a1], float),
                                  np.array([b0, b0, b1, b1], float))

@@ -6,10 +6,10 @@ import pytest
 
 from types import SimpleNamespace
 
-from rtw_tpu.models import scene as S
-from rtw_tpu.models.builder import SceneBuilder, translate, rotate_y
-from rtw_tpu.ops.intersect import intersect_scene, occluded as _occluded, BIG
-from rtw_tpu.ops.vec import v3
+from rtw.models import scene as S
+from rtw.models.builder import SceneBuilder, translate, rotate_y
+from rtw.ops.intersect import intersect_scene, occluded as _occluded, BIG
+from rtw.ops.vec import v3
 
 
 def occluded(scene, o, d, tmin, tmax, time, vol_u):
@@ -187,7 +187,7 @@ def test_box_prim_equals_six_rects():
     """PRIM_BOX (one slab test) must reproduce the reference's 6-AARect
     composite (ioGeometryGroup.h:27-41 createBox) on every hit field —
     including interior-origin rays (exit-face hits) and a rotated instance."""
-    from rtw_tpu.ops.vec import Vec3
+    from rtw.ops.vec import Vec3
 
     def mk(use_box):
         b = SceneBuilder()
@@ -229,9 +229,9 @@ def test_reeval_hit_matches_intersect_scene(sid):
     re-derivation) must reproduce intersect_scene's full hit record when
     fed the sweep's own winners — transforms, boxes, volumes, moving
     spheres included."""
-    import rtw_tpu as rt
-    from rtw_tpu.ops.intersect import intersect_scene, reeval_hit
-    from rtw_tpu.ops.vec import v3
+    import rtw as rt
+    from rtw.ops.intersect import intersect_scene, reeval_hit
+    from rtw.ops.vec import v3
 
     scene = rt.build_scene(sid, 64, 64)
     rng = np.random.default_rng(21)

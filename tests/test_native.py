@@ -7,8 +7,8 @@ and must be a drop-in for the Python implementations."""
 import numpy as np
 import pytest
 
-from rtw_tpu.utils import native as N
-from rtw_tpu.utils.rng import XorShift32
+from rtw.utils import native as N
+from rtw.utils.rng import XorShift32
 
 
 requires_native = pytest.mark.skipif(N.get() is None,

@@ -14,10 +14,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import rtw_tpu as rt
-from rtw_tpu.parallel.mesh import make_mesh, render_sharded, grad_sharded
-from rtw_tpu.utils import rng as R
-from rtw_tpu.diff import extract_params
+import rtw as rt
+from rtw.parallel.mesh import make_mesh, render_sharded, grad_sharded
+from rtw.utils import rng as R
+from rtw.diff import extract_params
 
 
 @pytest.fixture(scope="module")
@@ -128,7 +128,7 @@ def test_sharded_checkpoint_resume(small_setup, tmp_path):
                                spp_chunk=2)
     half = render_sharded(scene, cfg_half, mesh, mode="pixels",
                           checkpoint_path=str(tmp_path / "half.ckpt"))
-    from rtw_tpu.utils import checkpoint as ckpt
+    from rtw.utils import checkpoint as ckpt
     st = ckpt.load(str(tmp_path / "half.ckpt"), cfg_half)
     assert st is not None and st[2] == 4
     # write it under the full config's fingerprint to resume from spp=4
@@ -167,7 +167,7 @@ def test_checkpoint_every_non_divisible(small_setup, tmp_path):
     cfg = rt.RenderConfig(nx=40, ny=16, spp=8, max_depth=4, scene_id=5,
                           spp_chunk=2)
     path = str(tmp_path / "odd.ckpt")
-    from rtw_tpu.utils import checkpoint as ckpt
+    from rtw.utils import checkpoint as ckpt
     saves = []
     orig = ckpt.save
 
@@ -195,35 +195,22 @@ def test_sample_sharding_metrics(small_setup):
 
 
 def test_sharded_pallas_queue_interpret(small_setup):
-    """The configuration an actual pod would run — queue scheduler +
-    Pallas trace kernels under shard_map — exercised on the CPU mesh via
-    Pallas TPU interpret mode (VERDICT r4 item 7: this combination
-    previously had zero coverage off real hardware).  Must agree with the
-    single-device render of the same config to queue-reassociation
-    tolerance.
-
-    MESH SIZE CAVEAT (measured, round 5): the interpret machinery
-    synchronizes the mesh's kernel launches with a threading.Barrier
-    over all participating devices, but XLA:CPU does not guarantee the
-    shards execute concurrently — a multi-device mesh deadlocks the
-    simulated barrier (a 4-of-8 mesh aborted the suite; a full 8-device
-    mesh hung a single pallas_call for 7+ minutes).  A 1-device mesh
-    still covers the real integration risk — pallas_call tracing/lowering
-    inside shard_map's manual-axes context, which previously had zero
-    coverage off real hardware — while multi-device scheduler semantics
-    stay covered by the jnp-backend mesh tests above."""
+    """The multi-card configuration — queue scheduler + Pallas-Triton trace
+    kernels under shard_map — on the 8-device CPU mesh through the Pallas
+    interpreter.  Must agree with the single-device render of the same
+    config to queue-reassociation tolerance."""
     import dataclasses
-    from jax.experimental.pallas import tpu as pltpu
+    from rtw.ops import trace_kernel as TK
 
     scene, cfg_regen = small_setup
     cfg = dataclasses.replace(cfg_regen, backend="pallas",
                               scheduler="queue")
-    with pltpu.force_tpu_interpret_mode():
+    with TK.interpret_mode():
         ref = np.asarray(rt.render(scene, cfg))
-        img1 = render_sharded(scene, cfg, make_mesh(jax.devices()[:1]),
+        img8 = render_sharded(scene, cfg, make_mesh(jax.devices()[:8]),
                               mode="pixels")
-    assert np.isfinite(img1).all()
-    np.testing.assert_allclose(np.asarray(img1), ref, atol=2e-5, rtol=2e-5)
+    assert np.isfinite(img8).all()
+    np.testing.assert_allclose(np.asarray(img8), ref, atol=2e-5, rtol=2e-5)
 
 
 def test_sharded_image_texture_stoch565():

@@ -1,7 +1,7 @@
 """Guard the committed reference-parity evidence (docs/PARITY.md).
 
 docs/parity/scene{N}_vs_ref.png are side-by-side images — left half OUR
-render (real TPU, 200 spp), right half the reference's committed render
+render (200 spp), right half the reference's committed render
 (RestOfLife/assets/img) — produced by tools/compare_reference.py.  This
 test re-scores the committed halves with the same SSIM so the numbers
 recorded in docs/PARITY.md stay true of the committed evidence.  (Per-pixel
@@ -13,7 +13,7 @@ import os
 import numpy as np
 import pytest
 
-from rtw_tpu.utils.image import ssim
+from rtw.utils.image import ssim
 
 PARITY_DIR = os.path.join(os.path.dirname(__file__), "..", "docs", "parity")
 

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rtw_tpu.ops import sampling as sm
-from rtw_tpu.ops import vec as V
+from rtw.ops import sampling as sm
+from rtw.ops import vec as V
 
 
 def _u(rng, n):
@@ -90,7 +90,7 @@ def test_pcg_uniforms_quality():
     """The fast RNG's uniforms must be uniform and decorrelated across
     slots/bounces/pixels (coarse chi-square + correlation checks)."""
     import jax
-    from rtw_tpu.utils import rng as R
+    from rtw.utils import rng as R
 
     key = R.base_key(0)
     n = 100_000
@@ -113,7 +113,7 @@ def test_pcg_uniforms_quality():
 
 def test_rng_threefry_and_fast_both_render():
     """Both RNG implementations drive a correct estimator (means agree)."""
-    import rtw_tpu as rt
+    import rtw as rt
 
     means = []
     for impl in ("fast", "threefry", "tea"):
@@ -128,7 +128,7 @@ def test_rng_threefry_and_fast_both_render():
 def test_tea_lcg_quality():
     """The parity-family tea+LCG RNG (cfg.rng="tea") draws uniform,
     decorrelated slot streams, and tea matches a direct scalar evaluation."""
-    from rtw_tpu.utils import rng as R
+    from rtw.utils import rng as R
 
     # scalar known-answer: replicate tea<16> in python ints
     def tea_py(v0, v1, rounds=16):

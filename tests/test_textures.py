@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rtw_tpu.models import scene as S
-from rtw_tpu.models.builder import SceneBuilder
-from rtw_tpu.ops.textures import eval_texture as _eval_texture, perlin_noise as _perlin, turbulence as _turb
-from rtw_tpu.ops.vec import v3
+from rtw.models import scene as S
+from rtw.models.builder import SceneBuilder
+from rtw.ops.textures import eval_texture as _eval_texture, perlin_noise as _perlin, turbulence as _turb
+from rtw.ops.vec import v3
 
 
 def eval_texture(tex, tid, u, v, p, present=(True,) * 5):
@@ -96,7 +96,7 @@ def test_marble_range():
 
 
 def test_image_texture_bilinear():
-    from rtw_tpu.models.registry import EARTHMAP
+    from rtw.models.registry import EARTHMAP
     b = SceneBuilder()
     earth = b.image_texture(EARTHMAP)
     m = b.lambertian(earth)
@@ -129,8 +129,8 @@ def test_bilinear_565_matches_rgb8():
     """RGB565 pair-atlas bilinear == exact 8-bit bilinear within the 5-bit
     quantization bound, including the clamp-addressing edges."""
     import jax.numpy as jnp
-    from rtw_tpu.ops.textures import _image_bilinear, _image_bilinear_565
-    import rtw_tpu as rt
+    from rtw.ops.textures import _image_bilinear, _image_bilinear_565
+    import rtw as rt
 
     scene = rt.build_scene(2, 64, 32)   # has the earth image texture
     tex = scene.textures
@@ -150,8 +150,8 @@ def test_nearest565_close_to_bilinear():
     """cfg.tex_filter='nearest565' (one-gather point sampling) must agree
     with the bilinear 565 fetch at texel centers and stay close elsewhere
     (it is a documented quality-for-speed knob, not a different texture)."""
-    import rtw_tpu as rt
-    from rtw_tpu.ops.textures import _image_bilinear_565, _image_nearest_565
+    import rtw as rt
+    from rtw.ops.textures import _image_bilinear_565, _image_nearest_565
 
     scene = rt.build_scene(2, 32, 32)   # earth image atlas
     tex = scene.textures
@@ -175,8 +175,8 @@ def test_tiled_atlas_gate_exact():
     blend — differing only by XLA fusion reassociation, hence 1-ulp
     tolerance), across ladder tiers (count in the T/8, T/4, T/2 and T
     regimes) and with needing granules scattered anywhere."""
-    import rtw_tpu as rt
-    from rtw_tpu.ops.shading import (_image_eval, _image_eval_tiled,
+    import rtw as rt
+    from rtw.ops.shading import (_image_eval, _image_eval_tiled,
                                      _ATLAS_GRANULE)
 
     scene = rt.build_scene(2, 32, 32)   # earth image atlas
@@ -211,8 +211,8 @@ def test_stoch565_expectation_is_bilinear():
     _image_bilinear_565 at every (u, v), and each single draw is one of
     the two x-blended rows (bounded by the two row values)."""
     import jax.numpy as jnp
-    from rtw_tpu.ops.textures import _image_bilinear_565, _image_stoch_565
-    import rtw_tpu as rt
+    from rtw.ops.textures import _image_bilinear_565, _image_stoch_565
+    import rtw as rt
 
     scene = rt.build_scene(2, 64, 32)   # has the earth image texture
     tex = scene.textures
@@ -240,7 +240,7 @@ def test_stoch565_render_matches_bilinear():
     image: same scene/sampling, the two estimators differ only in texture
     filtering, so at moderate spp the images must agree to MC-noise
     tolerance on average."""
-    import rtw_tpu as rt
+    import rtw as rt
 
     nx, ny, spp = 64, 32, 64
     scene = rt.build_scene(2, nx, ny)

@@ -1,9 +1,10 @@
-"""Pallas trace-kernel equivalence vs the pure-JAX reference sweep.
+"""Pallas-Triton trace kernels against the pure-JAX reference sweep.
 
-Runs in interpreter mode so the CPU suite covers the kernel logic; the same
-comparison runs compiled on real TPU hardware (see _pallas_check usage in
-BASELINE.md history).  The pure-JAX ops/intersect.py sweep is the reference
-implementation; the kernel must agree on every hit-record field.
+The kernels run here through the Pallas interpreter
+(trace_kernel.interpret_mode); the same comparison runs compiled on the
+GPU in chip_smoke.py phase (c).  The pure-JAX ops/intersect.py sweep is the
+reference implementation: the kernel's (t, prim) winner must agree with it
+on every ray, and the hit record built from it must equal the reference's.
 """
 
 import numpy as np
@@ -11,17 +12,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import rtw_tpu as rt
-from rtw_tpu.ops.intersect import intersect_scene, occluded
-from rtw_tpu.ops.shading import gather_shade
-from rtw_tpu.ops.vec import v3
-
-try:
-    from jax.experimental.pallas import tpu as pltpu
-    from rtw_tpu.ops import trace_kernel as TK
-    HAVE_PALLAS = True
-except ImportError:  # pragma: no cover
-    HAVE_PALLAS = False
+import rtw as rt
+from rtw import integrator as IG
+from rtw.ops import trace_kernel as TK
+from rtw.ops.intersect import intersect_scene, nearest, occluded, winner_hit
+from rtw.ops.shading import gather_shade
+from rtw.ops.vec import v3
 
 
 def _rand_rays(rng, n, scale, origin_shift):
@@ -31,62 +27,63 @@ def _rand_rays(rng, n, scale, origin_shift):
     return o, d
 
 
-@pytest.mark.skipif(not HAVE_PALLAS, reason="pallas unavailable")
-@pytest.mark.parametrize("sid,scale,shift", [
-    (0, 600.0, (278.0, 278.0, -400.0)),   # Cornell: transforms + NEE light
-    (3, 600.0, (278.0, 278.0, -400.0)),   # volumes + transforms
-    (5, 4.0, (0.0, 1.0, 1.0)),            # spheres only
-])
-def test_kernel_matches_jnp(sid, scale, shift):
-    scene = rt.build_scene(sid, 64, 64)
-    rng = np.random.default_rng(7)
-    n = TK.TILE  # one tile keeps interpret mode fast
-    o, d = _rand_rays(rng, n, scale, shift)
-    tm = jnp.zeros((n,), jnp.float32)
-    vu = jnp.asarray(rng.uniform(0.05, 0.95,
-                                 (max(scene.n_vol, 1), n)), jnp.float32)
-
+def _assert_same_winner(scene, o, d, tm, vu):
+    """Kernel (interpreted) vs reference: winner, t, hit record, shading
+    record and occlusion."""
     h_ref = intersect_scene(scene, o, d, 1e-6, 1e27, tm, vu)
-    sh_ref = gather_shade(scene, h_ref.prim_idx, h_ref.prim_idx >= 0)
-    with pltpu.force_tpu_interpret_mode():
-        h_k, sh_k = TK.trace_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
-        occ_k = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
     occ_ref = occluded(scene, o, d, 1e-4, 1e4, tm, vu)
-
-    np.testing.assert_array_equal(np.asarray(h_ref.prim_idx),
-                                  np.asarray(h_k.prim_idx))
+    with TK.interpret_mode():
+        k_t, k_i = TK.nearest_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
+        occ_k = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
+    np.testing.assert_array_equal(np.asarray(h_ref.prim_idx), np.asarray(k_i))
     hit = np.asarray(h_ref.prim_idx) >= 0
     # rtol 2e-4: grazing hits amplify FMA-contraction differences between
     # the two compilations through the quadratic's catastrophic cancellation
     np.testing.assert_allclose(np.asarray(h_ref.t)[hit],
-                               np.asarray(h_k.t)[hit], rtol=2e-4)
+                               np.asarray(k_t)[hit], rtol=2e-4)
+    np.testing.assert_array_equal(np.asarray(occ_ref), np.asarray(occ_k))
+
+    h_k = winner_hit(scene, k_t, k_i, o, d, tm, 1e-6)
     for a, b in [(h_ref.point, h_k.point), (h_ref.normal, h_k.normal)]:
         np.testing.assert_allclose(np.asarray(a.stack())[hit],
                                    np.asarray(b.stack())[hit],
                                    rtol=1e-4, atol=1e-4)
-    # uv: kernel uses a polynomial atan2 (~1e-4 rad)
     np.testing.assert_allclose(np.asarray(h_ref.u)[hit],
-                               np.asarray(h_k.u)[hit], atol=1e-3)
-    np.testing.assert_array_equal(np.asarray(occ_ref), np.asarray(occ_k))
-    # material row id of the winner (both backends, all lanes incl. misses)
+                               np.asarray(h_k.u)[hit], atol=1e-4)
     np.testing.assert_array_equal(np.asarray(h_ref.mat_id),
                                   np.asarray(h_k.mat_id))
-    # shading record of the winner
-    np.testing.assert_array_equal(
-        np.asarray(sh_ref.mat_type)[hit], np.asarray(sh_k.mat_type)[hit])
-    np.testing.assert_allclose(
-        np.asarray(sh_ref.rgb.stack())[hit],
-        np.asarray(sh_k.rgb.stack())[hit], atol=1e-6)
-    np.testing.assert_allclose(np.asarray(sh_ref.fuzz)[hit],
-                               np.asarray(sh_k.fuzz)[hit], atol=1e-6)
+    sh_ref = gather_shade(scene, h_ref.prim_idx, h_ref.prim_idx >= 0)
+    sh_k = gather_shade(scene, h_k.prim_idx, h_k.prim_idx >= 0)
+    np.testing.assert_array_equal(np.asarray(sh_ref.mat_type),
+                                  np.asarray(sh_k.mat_type))
+    return hit
+
+
+@pytest.mark.parametrize("sid,scale,shift", [
+    (0, 600.0, (278.0, 278.0, -400.0)),   # Cornell: transforms + NEE light
+    (3, 600.0, (278.0, 278.0, -400.0)),   # volumes + transforms
+    (5, 4.0, (0.0, 1.0, 1.0)),            # spheres only
+    (1, 12.0, (0.0, 1.0, 0.0)),           # moving spheres, many blocks
+    (2, 12.0, (0.0, 1.0, 0.0)),           # image texture, light rect
+    (4, 600.0, (278.0, 278.0, -400.0)),   # boxes, volumes, xformed spheres
+])
+def test_kernel_matches_jnp(sid, scale, shift):
+    scene = rt.build_scene(sid, 64, 64)
+    rng = np.random.default_rng(7)
+    n = 2 * TK.RAY_BLOCK
+    o, d = _rand_rays(rng, n, scale, shift)
+    tm = jnp.asarray(rng.uniform(0, 1, n), jnp.float32)
+    vu = jnp.asarray(rng.uniform(0.05, 0.95,
+                                 (max(scene.n_vol, 1), n)), jnp.float32)
+    hit = _assert_same_winner(scene, o, d, tm, vu)
+    assert hit.any()
 
 
 def _many_prim_scene():
-    """Synthetic large scene: >= 3 blocks each of spheres, boxes and rects so
-    the kernels' dynamic front-to-back traversal (_dyn_nearest/_dyn_occl) is
-    exercised, not just the static unrolled path."""
-    from rtw_tpu.models.builder import SceneBuilder
-    import rtw_tpu.models.scene as S
+    """Synthetic large scene: >= 3 blocks each of spheres, boxes and rects,
+    so the kernels' multi-block groups and per-block culls are exercised."""
+    from rtw.models.builder import SceneBuilder
+    import rtw.models.scene as S
 
     b = SceneBuilder()
     rng = np.random.default_rng(3)
@@ -106,144 +103,94 @@ def _many_prim_scene():
     return b.build()
 
 
-@pytest.mark.skipif(not HAVE_PALLAS, reason="pallas unavailable")
 def test_kernel_dynamic_traversal_matches_jnp():
+    """Multi-block groups (the culled block loop) on a 600-prim scene."""
     scene = _many_prim_scene()
-    # the plan must actually contain dynamic groups or this test is vacuous
-    assert any(TK._is_dynamic(e) for e in scene.chunk_plan)
+    assert any(e[2] // e[6] >= 3 for e in scene.chunk_plan)
     rng = np.random.default_rng(9)
-    n = TK.TILE
+    n = TK.RAY_BLOCK
     o, d = _rand_rays(rng, n, 120.0, (0.0, 0.0, 0.0))
     tm = jnp.zeros((n,), jnp.float32)
     vu = jnp.full((1, n), 0.5, jnp.float32)
-
-    h_ref = intersect_scene(scene, o, d, 1e-6, 1e27, tm, vu)
-    with pltpu.force_tpu_interpret_mode():
-        h_k, sh_k = TK.trace_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
-        occ_k = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
-    occ_ref = occluded(scene, o, d, 1e-4, 1e4, tm, vu)
-
-    np.testing.assert_array_equal(np.asarray(h_ref.prim_idx),
-                                  np.asarray(h_k.prim_idx))
-    hit = np.asarray(h_ref.prim_idx) >= 0
-    assert hit.sum() > 100
-    np.testing.assert_allclose(np.asarray(h_ref.t)[hit],
-                               np.asarray(h_k.t)[hit], rtol=2e-4)
-    for a, b in [(h_ref.point, h_k.point), (h_ref.normal, h_k.normal)]:
-        np.testing.assert_allclose(np.asarray(a.stack())[hit],
-                                   np.asarray(b.stack())[hit],
-                                   rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(occ_ref), np.asarray(occ_k))
+    hit = _assert_same_winner(scene, o, d, tm, vu)
+    assert hit.sum() > 30
 
 
-def _huge_prim_scene(n_spheres=2500):
-    """>= _TWO_LEVEL_MIN blocks of one type so the two-level (super-group)
-    front-to-back traversal compiles in, including a partial last super."""
-    from rtw_tpu.models.builder import SceneBuilder
-
-    b = SceneBuilder()
-    rng = np.random.default_rng(5)
-    mat = b.lambertian(b.constant_texture((0.5, 0.5, 0.5)))
-    for _ in range(n_spheres):
-        b.sphere(rng.uniform(-200, 200, 3), rng.uniform(1.0, 5.0), mat)
-    b.set_camera(lookfrom=(0, 0, -500), lookat=(0, 0, 0), vup=(0, 1, 0),
-                 vfov=40.0, aspect=1.0, aperture=0.0, focus_dist=10.0)
-    return b.build()
-
-
-@pytest.mark.skipif(not HAVE_PALLAS, reason="pallas unavailable")
-def test_kernel_two_level_traversal_matches_jnp(monkeypatch):
-    # lower the production crossover so interpret mode can afford the scene
-    # (kernel caches key on the chunk plan, which is unique to this scene)
-    monkeypatch.setattr(TK, "_TWO_LEVEL_MIN", 32)
-    scene = _huge_prim_scene()
-    assert any(TK._two_level(e) for e in scene.chunk_plan)
-    # partial last super exercises the pad-row masking
-    assert any((e[2] // e[6]) % TK._GROUP for e in scene.chunk_plan
-               if TK._two_level(e))
-    rng = np.random.default_rng(13)
-    n = TK.TILE
-    o, d = _rand_rays(rng, n, 250.0, (0.0, 0.0, 0.0))
+def test_kernel_ragged_ray_count():
+    """A ray count that is not a multiple of the ray block: the padded
+    tail is dead and sliced off."""
+    scene = rt.build_scene(5, 16, 16)
+    rng = np.random.default_rng(1)
+    n = TK.RAY_BLOCK + 37
+    o, d = _rand_rays(rng, n, 4.0, (0.0, 1.0, 1.0))
     tm = jnp.zeros((n,), jnp.float32)
     vu = jnp.full((1, n), 0.5, jnp.float32)
-
-    h_ref = intersect_scene(scene, o, d, 1e-6, 1e27, tm, vu)
-    with pltpu.force_tpu_interpret_mode():
-        h_k, sh_k = TK.trace_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
-        occ_k = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
-    occ_ref = occluded(scene, o, d, 1e-4, 1e4, tm, vu)
-
-    np.testing.assert_array_equal(np.asarray(h_ref.prim_idx),
-                                  np.asarray(h_k.prim_idx))
-    hit = np.asarray(h_ref.prim_idx) >= 0
-    assert hit.sum() > 100
-    np.testing.assert_allclose(np.asarray(h_ref.t)[hit],
-                               np.asarray(h_k.t)[hit], rtol=2e-4)
-    np.testing.assert_array_equal(np.asarray(occ_ref), np.asarray(occ_k))
+    with TK.interpret_mode():
+        k_t, k_i = TK.nearest_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
+        occ = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
+    assert k_t.shape == (n,) and k_i.shape == (n,) and occ.shape == (n,)
+    r_t, r_i = nearest(scene, o, d, 1e-6, 1e27, tm, vu)
+    np.testing.assert_array_equal(np.asarray(k_i), np.asarray(r_i))
+    np.testing.assert_array_equal(
+        np.asarray(occ), np.asarray(occluded(scene, o, d, 1e-4, 1e4, tm, vu)))
 
 
-def _mixed_big_scene():
-    """A big two-level sphere group PLUS flat-dynamic boxes and static
-    rect/volume groups, so props-streaming mode exercises every residency
-    route at once: per-super DMA (spheres), resident flat walk (boxes),
-    resident static sweep (rects + volume)."""
-    from rtw_tpu.models.builder import SceneBuilder
-    import rtw_tpu.models.scene as S
-
-    b = SceneBuilder()
-    rng = np.random.default_rng(7)
-    mat = b.lambertian(b.constant_texture((0.5, 0.5, 0.5)))
-    for _ in range(2500):                      # 40 blocks: two-level @ min 32
-        b.sphere(rng.uniform(-200, 200, 3), rng.uniform(1.0, 5.0), mat)
-    for _ in range(200):                       # >= 3 blocks: flat dynamic
-        lo = rng.uniform(-200, 200, 3)
-        b.box(lo, lo + rng.uniform(2.0, 10.0, 3), mat)
-    for _ in range(4):
-        a0, b0 = rng.uniform(-200, 180, 2)
-        b.rect(a0, a0 + 20, b0, b0 + 20, rng.uniform(-200, 200), False,
-               S.AXIS_Y, mat)
-    b.volume_sphere((0.0, 0.0, 100.0), 30.0, 0.05,
-                    b.isotropic(b.constant_texture((1.0, 1.0, 1.0))))
-    b.set_camera(lookfrom=(0, 0, -500), lookat=(0, 0, 0), vup=(0, 1, 0),
-                 vfov=40.0, aspect=1.0, aperture=0.0, focus_dist=10.0)
-    return b.build()
-
-
-@pytest.mark.skipif(not HAVE_PALLAS, reason="pallas unavailable")
-def test_kernel_props_streaming_matches_resident(monkeypatch):
-    """HBM props streaming (resident-group DMA + per-super DMA) is exactly
-    the whole-table-resident kernel: same winners, t, occlusion."""
-    monkeypatch.setattr(TK, "_TWO_LEVEL_MIN", 32)
-    scene = _mixed_big_scene()
-    assert any(TK._two_level(e) for e in scene.chunk_plan)
-    assert any(TK._is_dynamic(e) and not TK._two_level(e)
-               for e in scene.chunk_plan)
-    assert any(not TK._is_dynamic(e) for e in scene.chunk_plan)
-    # partial last super exercises the guard-tail DMA overhang
-    assert any((e[2] // e[6]) % TK._GROUP for e in scene.chunk_plan
-               if TK._two_level(e))
-    rng = np.random.default_rng(21)
-    n = TK.TILE
-    o, d = _rand_rays(rng, n, 250.0, (0.0, 0.0, 0.0))
+def test_kernel_dead_lanes_miss():
+    """tmax = -BIG (the integrator's dead-lane sentinel) forces a miss and
+    no occlusion, whatever the ray points at."""
+    scene = rt.build_scene(0, 16, 16)
+    n = TK.RAY_BLOCK
+    o = v3(jnp.tile(jnp.asarray([[278.0, 278.0, -800.0]], jnp.float32),
+                    (n, 1)))
+    d = v3(jnp.tile(jnp.asarray([[0.0, 0.0, 1.0]], jnp.float32), (n, 1)))
+    alive = np.arange(n) % 2 == 0
+    tmax = jnp.where(jnp.asarray(alive), 1e27, -TK.BIG)
     tm = jnp.zeros((n,), jnp.float32)
     vu = jnp.full((1, n), 0.5, jnp.float32)
+    with TK.interpret_mode():
+        k_t, k_i = TK.nearest_pallas(scene, o, d, 1e-6, tmax, tm, vu)
+        occ = TK.occluded_pallas(scene, o, d, 1e-4, tmax, tm, vu)
+    k_i, occ = np.asarray(k_i), np.asarray(occ)
+    assert (k_i[alive] >= 0).all()                 # the back wall is hit
+    assert (k_i[~alive] == -1).all()
+    assert not occ[~alive].any()
+    assert (np.asarray(k_t)[~alive] >= TK.BIG).all()
 
-    with pltpu.force_tpu_interpret_mode():
-        monkeypatch.setattr(TK, "_PROPS_STREAM_OVERRIDE", False)
-        h_res, sh_res = TK.trace_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
-        occ_res = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
-        monkeypatch.setattr(TK, "_PROPS_STREAM_OVERRIDE", True)
-        h_st, sh_st = TK.trace_pallas(scene, o, d, 1e-6, 1e27, tm, vu)
-        occ_st = TK.occluded_pallas(scene, o, d, 1e-4, 1e4, tm, vu)
 
-    np.testing.assert_array_equal(np.asarray(h_res.prim_idx),
-                                  np.asarray(h_st.prim_idx))
-    assert (np.asarray(h_res.prim_idx) >= 0).sum() > 100
-    np.testing.assert_array_equal(np.asarray(h_res.t), np.asarray(h_st.t))
-    np.testing.assert_array_equal(np.asarray(h_res.point.stack()),
-                                  np.asarray(h_st.point.stack()))
-    np.testing.assert_array_equal(np.asarray(occ_res), np.asarray(occ_st))
-    np.testing.assert_array_equal(np.asarray(sh_res.mat_type),
-                                  np.asarray(sh_st.mat_type))
-    np.testing.assert_array_equal(np.asarray(sh_res.rgb.stack()),
-                                  np.asarray(sh_st.rgb.stack()))
+@pytest.mark.parametrize("backend,sid,platform,expect", [
+    ("auto", 4, "gpu", True),       # >= KERNEL_MIN_PRIMS on the GPU
+    ("auto", 0, "gpu", True),       # Cornell: 8 prims
+    ("auto", 5, "gpu", False),      # three spheres fuse in XLA
+    ("auto", 4, "cpu", False),      # never off the GPU
+    ("jnp", 4, "gpu", False),
+    ("pallas", 5, "gpu", True),     # forced, on the GPU
+])
+def test_auto_dispatch(monkeypatch, backend, sid, platform, expect):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    scene = rt.build_scene(sid, 16, 16)
+    n_prims = sum(e[1] for e in scene.chunk_plan)
+    assert (n_prims >= IG.KERNEL_MIN_PRIMS) == (sid != 5)
+    cfg = rt.RenderConfig(nx=16, ny=16, backend=backend, scene_id=sid)
+    assert IG._pallas_backend(cfg, scene) is expect
+
+
+def test_forced_pallas_off_gpu_raises():
+    """No silent fallback: backend='pallas' off the GPU raises eagerly (in
+    render(), before any jit cache could serve an interpreted kernel) and
+    names the fix; the tests' interpreter is the only exception."""
+    assert jax.default_backend() == "cpu"
+    scene = rt.build_scene(5, 16, 8)
+    cfg = rt.RenderConfig(nx=16, ny=8, spp=1, max_depth=2, scene_id=5,
+                          backend="pallas", seed=123)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        rt.render(scene, cfg)
+    o, d = _rand_rays(np.random.default_rng(0), 8, 1.0, (0, 0, 0))
+    with pytest.raises(ValueError, match="need a GPU"):
+        TK.nearest_pallas(scene, o, d, 1e-6, 1e27, jnp.zeros(8),
+                          jnp.zeros((1, 8)))
+    with TK.interpret_mode():
+        assert IG._pallas_backend(cfg, scene)
+    with pytest.raises(ValueError, match="unknown backend"):
+        rt.RenderConfig(backend="mega")
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        rt.RenderConfig(scheduler="qmega")

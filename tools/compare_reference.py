@@ -8,7 +8,7 @@ denoiser with a different RNG, a disabled lens radius, and the quirk ledger
 of SURVEY §7.4, so per-pixel equality is not defined — SSIM >> 0.5 with the
 right layout/colors is the meaningful check.
 
-Run (renders on whatever backend jax picks; TPU ~1-3 min/scene):
+Run (renders on whatever backend jax picks):
     python tools/compare_reference.py [-s SID ...] [--width 400] [--spp 200]
 Writes side-by-side PNGs to --out-dir and prints one JSON line per scene.
 """
@@ -54,8 +54,8 @@ def main(argv=None) -> int:
 
     from PIL import Image
 
-    import rtw_tpu as rt
-    from rtw_tpu.utils.image import ssim
+    import rtw as rt
+    from rtw.utils.image import ssim
 
     os.makedirs(args.out_dir, exist_ok=True)
     for sid in args.scenes:
@@ -71,7 +71,7 @@ def main(argv=None) -> int:
                               max_depth=args.max_depth, scene_id=sid)
         scene = rt.build_scene(sid, nx, ny)
         if args.denoise:
-            from rtw_tpu.denoise import denoise
+            from rtw.denoise import denoise
 
             linear = rt.render(scene, cfg)           # bottom-origin linear
             disp = np.asarray(denoise(linear, scene, cfg, mode="ldr",

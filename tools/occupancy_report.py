@@ -1,12 +1,13 @@
-"""Record the wavefront occupancy story (VERDICT r2 item 4).
+"""Record the wavefront occupancy story on the GPU.
 
 Runs the big scenes with cfg.bounce_stats under both schedulers and writes
-docs/occupancy.json: per-scene wavefront iterations, mean occupancy,
-rays-by-depth histogram and the occupancy-by-iteration curve — the
-committed evidence behind the work-queue scheduler's occupancy claims
+chiprun_out/occupancy.json: per-scene wavefront iterations, mean
+occupancy, rays-by-depth histogram and the occupancy-by-iteration curve —
+the evidence behind the work-queue scheduler's occupancy claims
 (integrator.trace_wavefront_queue docstring).
 
-Usage: python tools/occupancy_report.py [scene_id ...]   (default: 1 2 4)
+Usage: python tools/occupancy_report.py [--cpu] [scene_id ...]
+(default: 1 2 4)
 """
 
 import json
@@ -18,14 +19,18 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 WORKLOADS = {1: (800, 400, 16), 2: (800, 400, 16), 4: (800, 400, 8)}
-OUT = os.path.join(os.path.dirname(__file__), "..", "docs", "occupancy.json")
+OUT = os.path.join(os.path.dirname(__file__), "..", "chiprun_out",
+                   "occupancy.json")
 
 
 def main(argv):
-    import rtw_tpu as rt
+    from tools.bench_scenes import require_device
 
-    ids = [int(a) for a in argv] or sorted(WORKLOADS)
-    report = {}
+    device = require_device("--cpu" in argv)
+    import rtw as rt
+
+    ids = [int(a) for a in argv if a != "--cpu"] or sorted(WORKLOADS)
+    report = {"device": device}
     for sid in ids:
         nx, ny, spp = WORKLOADS[sid]
         scene = rt.build_scene(sid, nx, ny)
@@ -53,6 +58,7 @@ def main(argv):
                   flush=True)
         report[str(sid)] = {"workload": [nx, ny, spp], **entry}
 
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
     with open(OUT, "w") as f:
         json.dump(report, f, indent=1)
     print(f"wrote {os.path.normpath(OUT)}", flush=True)

@@ -1,15 +1,16 @@
 """Per-op time decomposition of one scene's render from a jax.profiler
-trace (the round-4/5 'xprof decomposition' harness, now committed).
+trace.
 
-Captures a profiler trace of a warm render, parses the perfetto JSON the
-profiler writes, and aggregates TPU-side op durations by a coarse bucket
-map (trace kernel / occlusion kernel / atlas gathers / flush scatters /
-fusions).  Buckets are keyed on XLA op names, which are stable enough
-across rebuilds for A/B comparison; anything unmatched lands in `other`
-so the table always sums to the device total.
+Captures a profiler trace of a warm render on the GPU, parses the perfetto
+JSON the profiler writes, and aggregates the GPU device planes' op
+durations by a coarse bucket map (trace kernel / occlusion kernel / atlas
+gathers / flush scatters / fusions).  Buckets are keyed on XLA op names,
+which are stable enough across rebuilds for A/B comparison; anything
+unmatched lands in `other` so the table always sums to the device total.
 
-Run: python tools/profile_scene.py 4 [--spp 8] [--width 800]
-Prints one JSON line: bucket -> total ms on device for the traced render.
+Run: python tools/profile_scene.py 4 [--spp 8]
+Prints one JSON line: bucket -> total ms on device for the traced render;
+the trace itself stays under chiprun_out/profile_scene<N>/.
 """
 
 from __future__ import annotations
@@ -20,15 +21,13 @@ import gzip
 import json
 import os
 import sys
-import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 BUCKETS = (
     # (bucket, substrings matched against the op/kernel name, first wins)
-    ("trace_kernel", ("_kernel_body", "kernel_body")),
-    ("occl_kernel", ("_occl_body", "occl_body")),
-    ("mega_kernel", ("_mega_body", "mega_body")),
+    ("trace_kernel", ("trace_nearest",)),
+    ("occl_kernel", ("trace_occluded",)),
     ("gather", ("gather",)),
     ("scatter", ("scatter",)),
     ("cumsum_scan", ("reduce-window", "reduce_window")),
@@ -49,15 +48,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("scene", type=int)
     ap.add_argument("--spp", type=int, default=0, help="0 = workload table")
-    ap.add_argument("--width", type=int, default=800)
     ap.add_argument("--overrides", nargs="*", default=[])
     args = ap.parse_args()
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from bench_scenes import WORKLOADS, _coerce
+    from tools.bench_scenes import WORKLOADS, _coerce, require_device
 
-    import rtw_tpu as rt
-    from rtw_tpu.utils.profiling import trace
+    require_device(False)
+
+    import rtw as rt
+    from rtw.utils.profiling import trace
 
     nx, ny, spp = WORKLOADS[args.scene]
     if args.spp:
@@ -71,7 +70,9 @@ def main():
     scene = rt.build_scene(args.scene, nx, ny)
     rt.render(scene, cfg)            # warm-up/compile outside the trace
 
-    log_dir = tempfile.mkdtemp(prefix="rtwprof_")
+    log_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out",
+        f"profile_scene{args.scene}")
     with trace(log_dir):
         m = {}
         rt.render(scene, cfg, metrics=m)
@@ -84,14 +85,14 @@ def main():
     with gzip.open(sorted(files)[-1], "rt") as f:
         tr = json.load(f)
 
-    # device-side complete events: pick pids whose process names look like
-    # TPU device tracks (exclude python/host threads)
+    # device-side complete events: pids whose process names are GPU device
+    # planes ("/device:GPU:0 ..."), not python/host threads
     pid_name = {}
     for ev in tr.get("traceEvents", []):
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             pid_name[ev["pid"]] = ev["args"].get("name", "")
     dev_pids = {p for p, n in pid_name.items()
-                if "TPU" in n or "/device" in n.lower()}
+                if "/device:gpu" in n.lower()}
 
     agg: dict[str, float] = {}
     count: dict[str, int] = {}
@@ -107,12 +108,12 @@ def main():
         top[name] = top.get(name, 0.0) + dur_ms
 
     out = {
-        "scene": args.scene, "spp": spp, **ov,
-        "mrays_per_sec": round(m["mrays_per_sec"], 3),
-        "wall_ms": round(m["wall_seconds"] * 1000, 1),
-        "device_ms": {k: round(v, 1) for k, v in
+        "scene": args.scene, "spp": spp, **ov, "device": m["device_kind"],
+        "mrays_per_sec": m["mrays_per_sec"],
+        "wall_ms": m["wall_seconds"] * 1000,
+        "device_ms": {k: v for k, v in
                       sorted(agg.items(), key=lambda kv: -kv[1])},
-        "top_ops_ms": {k: round(v, 1) for k, v in
+        "top_ops_ms": {k: v for k, v in
                        sorted(top.items(), key=lambda kv: -kv[1])[:12]},
     }
     print(json.dumps(out))

@@ -41,9 +41,9 @@ def main():
     args = ap.parse_args()
 
     from PIL import Image
-    import rtw_tpu as rt
-    from rtw_tpu.models import registry
-    from rtw_tpu.utils.image import ssim
+    import rtw as rt
+    from rtw.models import registry
+    from rtw.utils.image import ssim
 
     ref = Image.open(REF).convert("RGB")
     rw, rh = ref.size
@@ -57,7 +57,7 @@ def main():
 
     def shoot(scene):
         if args.denoise:
-            from rtw_tpu.denoise import denoise
+            from rtw.denoise import denoise
 
             linear = rt.render(scene, cfg)
             disp = np.asarray(denoise(linear, scene, cfg, mode="ldr",
@@ -81,7 +81,7 @@ def main():
     # the builder would rightly reject this as a partial-overlap light):
     import dataclasses
     import jax.numpy as jnp
-    from rtw_tpu.models.scene import Lights
+    from rtw.models.scene import Lights
     scene = registry.in_one_weekend_light(nx / ny)
     phantom = Lights(
         position=jnp.asarray([[3.0, 2.3, -2.0]], jnp.float32),
