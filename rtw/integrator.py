@@ -49,17 +49,19 @@ from rtw.utils import rng as R
 
 
 # 'auto' traces with the Pallas-Triton kernels on a GPU from this many
-# primitives up.  Measured on an H100 (PERF.md): the kernel with the queue
-# scheduler won on the 8-prim Cornell box (1.57x) and on the 520-1410-prim
-# scenes (3.5-6x); on the 4-prim three-sphere scene the fused XLA sweep
-# with regen won, and on the 8-prim Cornell-volumes scene it was ~5% ahead.
+# surface (non-volume) primitives up.  Measured on an H100 (PERF.md): the
+# kernel with the queue scheduler beat the XLA sweep with regen on the
+# 8-surface-prim Cornell box (1.5x) and on the 520-1410-prim scenes
+# (5-10x); the XLA sweep won on the 4-prim three-sphere scene and on the
+# Cornell-volumes scene (6 surface prims + 2 volumes, which the kernel
+# tests for every ray with no cull).
 KERNEL_MIN_PRIMS = 8
 
 
 def _pallas_backend(cfg, scene) -> bool:
     """Static choice of trace backend.  'auto' uses the Pallas-Triton
     kernels (ops/trace_kernel.py) on a GPU for scenes of at least
-    KERNEL_MIN_PRIMS primitives; the pure-JAX sweep is the reference
+    KERNEL_MIN_PRIMS surface primitives; the pure-JAX sweep is the reference
     implementation everywhere else.  A forced 'pallas' off the GPU raises,
     unless the tests' interpreter is on (trace_kernel.interpret_mode).
 
@@ -77,8 +79,8 @@ def _pallas_backend(cfg, scene) -> bool:
         return True
     if cfg.backend == "jnp":
         return False
-    n_prims = sum(e[1] for e in scene.chunk_plan)
-    return n_prims >= KERNEL_MIN_PRIMS and jax.default_backend() == "gpu"
+    n_surface = sum(e[1] for e in scene.chunk_plan) - scene.n_vol
+    return n_surface >= KERNEL_MIN_PRIMS and jax.default_backend() == "gpu"
 
 
 def check_backend(cfg, scene) -> None:

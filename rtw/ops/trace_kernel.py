@@ -187,11 +187,10 @@ def _occluded_body(plan, vol_slots, tmin, rays_ref, vu_ref, props_ref,
 
 
 @functools.lru_cache(maxsize=64)
-def _make_call(kind, plan, vol_slots, tmin, n_pad, nvp, ray_block, num_warps,
-               interpret):
+def _make_call(kind, plan, vol_slots, tmin, n_pad, nvp, interpret):
     body = _nearest_body if kind == "nearest" else _occluded_body
     kern = functools.partial(body, plan, vol_slots, tmin)
-    ray_spec = pl.BlockSpec((ray_block,), lambda i: (i,))
+    ray_spec = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
     if kind == "nearest":
         out_specs = (ray_spec, ray_spec)
         out_shape = (jax.ShapeDtypeStruct((n_pad,), jnp.float32),
@@ -203,17 +202,17 @@ def _make_call(kind, plan, vol_slots, tmin, n_pad, nvp, ray_block, num_warps,
     def run(rays, vu, props, aabbs):
         return pl.pallas_call(
             kern,
-            grid=(n_pad // ray_block,),
+            grid=(n_pad // RAY_BLOCK,),
             in_specs=[
-                pl.BlockSpec((8, ray_block), lambda i: (0, i)),
-                pl.BlockSpec((nvp, ray_block), lambda i: (0, i)),
+                pl.BlockSpec((8, RAY_BLOCK), lambda i: (0, i)),
+                pl.BlockSpec((nvp, RAY_BLOCK), lambda i: (0, i)),
                 pl.BlockSpec(props.shape, lambda i: (0, 0)),
                 pl.BlockSpec(aabbs.shape, lambda i: (0, 0)),
             ],
             out_specs=out_specs,
             out_shape=out_shape,
             backend="triton",
-            compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+            compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
                                                  num_stages=1),
             interpret=interpret,
             name=f"trace_{kind}",
@@ -228,8 +227,7 @@ def _launch(kind, scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):
             f"the trace kernels need a GPU (backend is "
             f"{jax.default_backend()!r}); use backend='jnp'")
     n = o.x.shape[0]
-    rb = RAY_BLOCK
-    n_pad = -(-n // rb) * rb
+    n_pad = -(-n // RAY_BLOCK) * RAY_BLOCK
     tmax = jnp.broadcast_to(jnp.asarray(tmax, jnp.float32), (n,))
     rays = jnp.stack([o.x, o.y, o.z, d.x, d.y, d.z,
                       jnp.broadcast_to(time, (n,)), tmax])
@@ -244,7 +242,7 @@ def _launch(kind, scene: S.Scene, o: Vec3, d: Vec3, tmin, tmax, time, vol_u):
         props = jnp.concatenate(
             [props, pr.w2o.reshape(props.shape[0], 12)], axis=1)
     run = _make_call(kind, scene.chunk_plan, scene.vol_slots_static,
-                     float(tmin), n_pad, nvp, rb, NUM_WARPS, _INTERPRET)
+                     float(tmin), n_pad, nvp, _INTERPRET)
     out = run(rays, vu, props, scene.block_aabbs)
     return jax.tree_util.tree_map(lambda x: x[:n], out)
 

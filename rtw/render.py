@@ -33,6 +33,7 @@ def device_info() -> dict:
                 device_count=len(jax.devices()))
 
 
+@functools.lru_cache(maxsize=8)
 def tile_permutation(nx: int, ny: int, tile: int = 32) -> np.ndarray:
     """Pixel visit order that groups `tile`x`tile` image tiles into
     contiguous lane runs, so every ray block a trace-kernel program owns
@@ -49,11 +50,16 @@ def tile_permutation(nx: int, ny: int, tile: int = 32) -> np.ndarray:
 
     Lane i renders pixel `perm[i]`; invert by scattering lane values to
     `perm` (render() does).  Pure relabeling: per-pixel estimates are keyed
-    by logical pixel id, so the image is bit-identical to raster order."""
+    by logical pixel id, so the image is bit-identical to raster order.
+
+    Cached and read-only: the sort takes about 0.1 s of host time at
+    800x800, outside render()'s timer but inside every call's wall time."""
     y, x = np.mgrid[0:ny, 0:nx]
     y, x = y.ravel(), x.ravel()
     perm = np.lexsort((x % tile, y % tile, x // tile, y // tile))
-    return perm.astype(np.int32)
+    perm = perm.astype(np.int32)
+    perm.flags.writeable = False
+    return perm
 
 
 @functools.partial(jax.jit, static_argnums=(1, 4), donate_argnums=(5,))

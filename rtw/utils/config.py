@@ -58,7 +58,7 @@ class RenderConfig:
 
     # Trace backend --------------------------------------------------------
     # "auto": Pallas-Triton kernels on a GPU for scenes of at least
-    #         integrator.KERNEL_MIN_PRIMS prims (ops/trace_kernel.py),
+    #         integrator.KERNEL_MIN_PRIMS surface prims (ops/trace_kernel.py),
     #         pure-JAX sweep elsewhere.
     # "pallas" / "jnp": force one (pallas raises off the GPU).
     backend: str = "auto"

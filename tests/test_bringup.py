@@ -87,3 +87,33 @@ def test_compile_cache_location(monkeypatch, tmp_path, env_set):
         assert calls == [("jax_compilation_cache_dir", path)]
         with open(os.path.join(ROOT, ".gitignore")) as f:
             assert ".jax_cache/" in f.read().split()
+
+
+def test_former_package_name_resolves_to_rtw():
+    """The repo's one top-level package besides rtw and tools is the
+    package's former import name: its modules are the rtw modules
+    themselves (one object, one jit cache), and `python -m` reaches the
+    CLI through it."""
+    import importlib
+
+    import rtw
+    import rtw.cli
+    import rtw.parallel.mesh
+
+    names = sorted(d for d in os.listdir(ROOT)
+                   if os.path.isfile(os.path.join(ROOT, d, "__init__.py"))
+                   and d not in ("rtw", "tools"))
+    assert len(names) == 1, names
+    old = names[0]
+    assert importlib.import_module(old) is rtw
+    assert importlib.import_module(old + ".cli") is rtw.cli
+    assert (importlib.import_module(old + ".parallel.mesh").render_sharded
+            is rtw.parallel.mesh.render_sharded)
+    assert rtw.cli.__spec__.name == "rtw.cli"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT)
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-m", old + ".cli", "--help"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--denoise" in out.stdout

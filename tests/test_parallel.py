@@ -194,6 +194,26 @@ def test_sample_sharding_metrics(small_setup):
     np.testing.assert_allclose(img, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("scheduler", ["regen", "queue"])
+@pytest.mark.parametrize("mode", ["pixels", "samples"])
+def test_sharded_ray_count_matches_single_device(small_setup, mode,
+                                                 scheduler):
+    """render_sharded's `rays` (psum over the mesh) counts exactly the rays
+    of the one-device render(): same paths, same bounces, same shadow rays,
+    so rays/s on N devices compares with rays/s on one."""
+    import dataclasses
+
+    scene, cfg_regen = small_setup
+    cfg = dataclasses.replace(cfg_regen, scheduler=scheduler)
+    m1, m8 = {}, {}
+    rt.render(scene, cfg, metrics=m1)
+    render_sharded(scene, cfg, make_mesh(jax.devices()[:8]), mode=mode,
+                   metrics=m8)
+    assert m1["rays"] > m1["paths"]           # bounces and shadow rays
+    assert m8["rays"] == m1["rays"]
+    assert m8["paths"] == m1["paths"]
+
+
 def test_sharded_pallas_queue_interpret(small_setup):
     """The multi-card configuration — queue scheduler + Pallas-Triton trace
     kernels under shard_map — on the 8-device CPU mesh through the Pallas

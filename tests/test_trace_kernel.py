@@ -159,7 +159,8 @@ def test_kernel_dead_lanes_miss():
 
 @pytest.mark.parametrize("backend,sid,platform,expect", [
     ("auto", 4, "gpu", True),       # >= KERNEL_MIN_PRIMS on the GPU
-    ("auto", 0, "gpu", True),       # Cornell: 8 prims
+    ("auto", 0, "gpu", True),       # Cornell: 8 surface prims
+    ("auto", 3, "gpu", False),      # Cornell volumes: 6 surface + 2 volume
     ("auto", 5, "gpu", False),      # three spheres fuse in XLA
     ("auto", 4, "cpu", False),      # never off the GPU
     ("jnp", 4, "gpu", False),
@@ -168,8 +169,8 @@ def test_kernel_dead_lanes_miss():
 def test_auto_dispatch(monkeypatch, backend, sid, platform, expect):
     monkeypatch.setattr(jax, "default_backend", lambda: platform)
     scene = rt.build_scene(sid, 16, 16)
-    n_prims = sum(e[1] for e in scene.chunk_plan)
-    assert (n_prims >= IG.KERNEL_MIN_PRIMS) == (sid != 5)
+    n_surface = sum(e[1] for e in scene.chunk_plan) - scene.n_vol
+    assert (n_surface >= IG.KERNEL_MIN_PRIMS) == (sid not in (3, 5))
     cfg = rt.RenderConfig(nx=16, ny=16, backend=backend, scene_id=sid)
     assert IG._pallas_backend(cfg, scene) is expect
 
